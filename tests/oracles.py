@@ -1,7 +1,7 @@
 """Naive O(n^2) numpy oracles with FFTPACK scaling conventions.
 
 Re-derived from the textbook definitions; semantics match the reference
-test oracles (/root/reference/test/naivepack.c):
+test oracles (test/naivepack.c):
 
 * naive_fft  — forward DFT scaled by 1/n ("would be 1.0 in most other
   libraries", naivepack.c:107); ortho => 1/sqrt(n).

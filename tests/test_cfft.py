@@ -9,7 +9,7 @@ prime/odd lengths the reference handles via its generic radix.
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 from oracles import naive_fft, naive_ifft
 
 SIZES = [1, 2, 3, 4, 5, 6, 8, 15, 16, 25, 32, 49, 60, 101, 120, 210, 243,
@@ -133,7 +133,7 @@ def test_local_fourstep_matches_numpy(n):
     """Large n routes through the in-core four-step decomposition
     (core._fourstep_local); parity vs numpy in f64 pins the twiddle
     and digit-reversal order."""
-    from cfftpack_tpu.ops import core
+    from cfftpack_jax.ops import core
     assert core._fourstep_split_n(n) is not None
     r = np.random.default_rng(5)
     x = r.standard_normal(n) + 1j * r.standard_normal(n)
@@ -158,11 +158,11 @@ def test_local_fourstep_large_bluestein_roundtrip():
 @pytest.mark.parametrize("kind", ["mapflat", "mapfour"])
 def test_chunked_batch_dispatch_matches_numpy(kind, monkeypatch):
     """The big-working-set tiers of core._fft_any (sequential lax.map
-    over lane-tile batch chunks; measured 1.8-2.9x on v5e) must be
+    over batch chunks) must be
     bit-for-bit row-wise equal to the mathematically identical unchunked
     engine.  Thresholds are patched down so the tiers trigger at
     CPU-test sizes."""
-    from cfftpack_tpu.ops import core
+    from cfftpack_jax.ops import core
     monkeypatch.setattr(core, "_BIG_ELEMS", 1 << 12)
     if kind == "mapfour":
         monkeypatch.setattr(core, "_MAPFOUR_MIN_N", 1024)
@@ -178,8 +178,7 @@ def test_chunked_batch_dispatch_matches_numpy(kind, monkeypatch):
 
 
 def test_fft2_split_matches_fft2():
-    """fft2_split/ifft2_split (the 2-D TPU path: complex dtypes are
-    rejected there) agree with fft2 bin-for-bin, incl. odd axis-0,
+    """fft2_split/ifft2_split agree with fft2 bin-for-bin, incl. odd axis-0,
     batch dims, non-default axes and norms."""
     x = rng_complex((3, 7, 12), seed=23).astype(np.complex64)
     for norm in ("fftpack", "ortho"):
@@ -197,41 +196,30 @@ def test_fft2_split_matches_fft2():
                                want, atol=F32_TOL)
 
 
-def test_bluestein_stream_pad():
-    """Round-4 Bluestein pad selection (core._stream_pad_for_bluestein
-    + plan.next_stream_size): huge-n prime transforms may use a larger
-    128*5-smooth convolution pad so the inner FFTs stay on the stream
-    kernel; any valid pad must give identical results."""
+def test_bluestein_stream_pad(monkeypatch):
+    """Bluestein pad selection: any valid 5-smooth convolution pad
+    m >= 2n-1 (plan.bluestein_tables(n, m)) gives the same transform as
+    the default smallest pad."""
     import jax.numpy as jnp
-    from cfftpack_tpu import plan
-    from cfftpack_tpu.ops import core
+    from cfftpack_jax import plan
+    from cfftpack_jax.ops import core
 
-    # m must be a 5-smooth multiple of 16 (the kernel's DFT-16 tail):
-    # 1080 = 8*135 is 5-smooth but NOT stream-schedulable; 1152 is
-    assert plan.next_stream_size(131073) == 147456       # 128*1152
-    assert plan.next_stream_size(2 * 1009 - 1) == 2048   # 128*16
-    assert plan.next_stream_size(128 * 4096 + 1) is None
-    from cfftpack_tpu.ops.pallas_stream import stream_pallas_eligible
-    for x in (131073, 2017, 8197):
-        assert stream_pallas_eligible(plan.next_stream_size(x),
-                                      np.float32)
     with pytest.raises(ValueError):
         plan.bluestein_tables(101, 150)   # not 5-smooth / too small
+    with pytest.raises(ValueError):
+        plan.bluestein_tables(101, 200)   # < 2n-1
 
     n = 101
     x = rng_complex((3, n), seed=5)
     xr = jnp.asarray(x.real)
     xi = jnp.asarray(x.imag)
-    yr0, yi0 = core._bluestein(xr, xi, n, False)
-    import cfftpack_tpu.ops.core as c
-    orig = c._stream_pad_for_bluestein
-    c._stream_pad_for_bluestein = (
-        lambda n_, bp, dt: plan.next_stream_size(2 * n_ - 1))
-    try:
-        yr1, yi1 = c._bluestein(xr, xi, n, False)
-    finally:
-        c._stream_pad_for_bluestein = orig
     want = naive_fft(x) * n          # core._bluestein is unscaled
-    for yr, yi in ((yr0, yi0), (yr1, yi1)):
+    tables = plan.bluestein_tables
+    for m in (None, 256, 2048):
+        if m is not None:
+            monkeypatch.setattr(plan, "bluestein_tables",
+                                lambda n_, m=m: tables(n_, m))
+        assert plan.bluestein_tables(n)[0] == (m or 216)
+        yr, yi = core._bluestein(xr, xi, n, False)
         got = np.asarray(yr) + 1j * np.asarray(yi)
         np.testing.assert_allclose(got, want, atol=F64_TOL * 64 * n)

@@ -3,7 +3,7 @@ INCLUDING the quirky modes the modern API deviates on."""
 import numpy as np
 import pytest
 
-import cfftpack_tpu.compat as cc
+import cfftpack_jax.compat as cc
 
 GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden.npz")
 TOL = 1e-12
@@ -159,8 +159,8 @@ def test_fft_stride_column_walk():
     Equivalence: strided forward == forward(gathered view) scattered
     back, and the 2-D composition matches fft2."""
     import numpy as np
-    from cfftpack_tpu import compat as cp
-    import cfftpack_tpu as ct
+    from cfftpack_jax import compat as cp
+    import cfftpack_jax as ct
     r = np.random.default_rng(81)
     m, n = 8, 6
     x = (r.standard_normal((m, n)) + 1j * r.standard_normal((m, n)))

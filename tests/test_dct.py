@@ -7,7 +7,7 @@ sizes including 60 = 4*3*5.
 import numpy as np
 import pytest
 
-from cfftpack_tpu.ops.dct import dct, idct, dst, idst
+from cfftpack_jax.ops.dct import dct, idct, dst, idst
 import oracles as O
 
 SIZES = [2, 3, 4, 5, 8, 15, 16, 32, 60, 101]
@@ -143,42 +143,3 @@ def test_dct3_fused_mod2_sizes(n):
                                atol=1e-12 * max(1, n ** 0.5))
     rt = np.asarray(idct(dct(x, 3), 3))
     np.testing.assert_allclose(rt, x, atol=1e-12 * max(1, n ** 0.5))
-
-
-def test_coldct_column_path_matches_generic(monkeypatch):
-    """Round-5 column DCT-II/III (pair + column kernel, dct._run
-    axis==-2 branch): every norm/direction must match the moveaxis
-    path bit-for-bit-close.  The TPU-only gate is bypassed so the
-    interpret-mode kernel runs on CPU; on-chip perf in
-    COLDCT_AB_r05.jsonl."""
-    import importlib
-    import numpy as np
-    import jax.numpy as jnp
-    import cfftpack_tpu as ct
-    dctmod = importlib.import_module("cfftpack_tpu.ops.dct")
-    real_ok = dctmod._coldct_ok
-
-    def fake_ok(x, n0):
-        return (x.dtype == jnp.float32 and x.ndim >= 3
-                and n0 % 2 == 0 and int(np.prod(x.shape[:-2])) % 2 == 0
-                and n0 >= 16)
-
-    monkeypatch.setattr(dctmod, "_coldct_ok", fake_ok)
-    r = np.random.default_rng(71)
-    x = r.standard_normal((2, 64, 128)).astype(np.float32)
-    xt = np.swapaxes(x, -2, -1).copy()
-    for norm in ("fftpack", "ortho", "backward"):
-        for t in (2, 3):
-            got = np.asarray(ct.dct(x, t, axis=-2, norm=norm))
-            # oracle through the LAST-axis path (different static axis
-            # -> different trace; the shared-signature jit cache would
-            # otherwise hand back the column-path program)
-            want = np.swapaxes(
-                np.asarray(ct.dct(xt, t, axis=-1, norm=norm)), -2, -1)
-            scale = max(1.0, np.abs(want).max())
-            assert np.abs(got - want).max() / scale < 5e-6, (norm, t)
-            # inverse direction through the column branch too
-            gi = np.asarray(ct.idct(ct.dct(x, t, axis=-2, norm=norm),
-                                    t, axis=-2, norm=norm))
-            assert np.abs(gi - x).max() < 5e-5, (norm, t)
-    monkeypatch.setattr(dctmod, "_coldct_ok", real_ok)

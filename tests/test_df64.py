@@ -14,8 +14,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import cfftpack_tpu as ct
-from cfftpack_tpu.ops import df64 as D
+import cfftpack_jax as ct
+from cfftpack_jax.ops import df64 as D
 
 GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden.npz")
 
@@ -395,9 +395,8 @@ def test_hp_large_n_engines_match_flat():
     """Round-4 large-n hp dispatch (hp._fft_any_hp): the four-step and
     chunked df engines must agree with the flat df stockham at VALUE
     level (hi+lo in f64 — plane-wise comparison misreads equivalent
-    df splits as ~1e-9) and with numpy f64.  On-chip crossovers in
-    benchmarks/results/HP_LARGE_r04.jsonl."""
-    from cfftpack_tpu.ops import hp
+    df splits as ~1e-9) and with numpy f64."""
+    from cfftpack_jax.ops import hp
     r = np.random.default_rng(7)
     n, b = 2048, 64                      # fourstep split (16, 128)
     xr = jnp.asarray(r.standard_normal((b, n)).astype(np.float32))
@@ -431,7 +430,7 @@ def test_hp_dispatch_routing():
     """_fft_any_hp routes by (backend, batch, n) — spies on the
     engine jits; CPU always takes flat (XLA:CPU df compile pathology,
     see _fft_any_hp docstring)."""
-    from cfftpack_tpu.ops import hp
+    from cfftpack_jax.ops import hp
     calls = []
     orig = (hp._sfft_hp_jit, hp._fourstep_hp_jit, hp._chunked_hp_jit)
 
@@ -451,7 +450,7 @@ def test_hp_dispatch_routing():
         # cpu=True: always flat regardless of shape thresholds
         hp._fft_any_hp(*q, 256, False, True)
         assert calls == ["flat"]
-        # tpu-form routing decisions (trace the DECISION only: shrink
+        # off-CPU routing decisions (trace the DECISION only: shrink
         # the thresholds so small CPU-sized arrays hit each branch)
         old = (hp._HP_FOURSTEP_MIN, hp._HP_BIG_ELEMS,
                hp._HP_MAPFOUR_MIN_N)

@@ -9,7 +9,7 @@ Reference-quirk deviations (documented in the modules):
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 from oracles import naive_gdft
 
 GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden.npz")

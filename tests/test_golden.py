@@ -2,7 +2,7 @@
 
 tests/golden/golden.npz is generated by tools/make_golden.py running the
 actual reference (FFTPACK 5.1 + cfftpack wrapper) — the strongest oracle
-we have (BASELINE.md: <=1e-12 f64 vs reference C).  Default and ortho
+we have (<=1e-12 f64 vs reference C).  Default and ortho
 scaling modes for every 1-D family, plus fft2 and fast-size tables.
 
 Reference-quirk deviations (documented, reproduced only in compat):
@@ -19,8 +19,8 @@ Reference-quirk deviations (documented, reproduced only in compat):
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
-from cfftpack_tpu.ops.dct import dct, idct, dst, idst
+import cfftpack_jax as ct
+from cfftpack_jax.ops.dct import dct, idct, dst, idst
 
 GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden.npz")
 TOL = 1e-12

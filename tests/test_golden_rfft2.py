@@ -9,7 +9,7 @@ including the reference's Nyquist-row and sign fixups.
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 
 GOLD = np.load(__file__.rsplit("/", 1)[0] + "/golden/golden_rfft2.npz")
 

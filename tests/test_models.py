@@ -4,14 +4,14 @@ blackscholes.cpp strike table; montecarlo.c QMC variance reduction)."""
 import numpy as np
 import pytest
 
-from cfftpack_tpu.models import (conv_bsvg_option, conv_option_price,
+from cfftpack_jax.models import (conv_bsvg_option, conv_option_price,
                                  vg_mc_price, asian_option_qmc,
                                  asian_option_qmc_device,
                                  brownian_paths_qmc, bs_cf, vg_cf,
                                  cf_moment_sigma, ShortRateMesh,
                                  callable_bond_demo)
-from cfftpack_tpu.models.chfun import normal_cf, nig_cf, alpha_stable_cf
-from cfftpack_tpu.utils import (normal_cdf, normal_icdf, halton, primes,
+from cfftpack_jax.models.chfun import normal_cf, nig_cf, alpha_stable_cf
+from cfftpack_jax.utils import (normal_cdf, normal_icdf, halton, primes,
                                 black_scholes_option, brent)
 
 # reference benchmark parameters (vargamma.c:108-121)
@@ -97,7 +97,7 @@ def test_halton_batch_matches_host():
     """Device radical inverse (digit-parallel broadcast-reduce) == host
     numpy sequence, including across a block boundary and high
     indices."""
-    from cfftpack_tpu.utils.qmc import halton_batch
+    from cfftpack_jax.utils.qmc import halton_batch
     got = np.asarray(halton_batch(100001, 64, 32, dtype="float64"))
     want = halton(np.arange(100001, 100065), 32)
     np.testing.assert_allclose(got, want, atol=1e-12)
@@ -144,7 +144,7 @@ def test_vg_mc_price_device_matches_host_pipeline():
     in one jit) draws the same uniforms as the host-sampled path, so
     the two prices differ only by the f32 grid: ~1e-5, far inside the
     0.2 MC band around the QuantLib anchor."""
-    from cfftpack_tpu.models import vg_mc_price_device
+    from cfftpack_jax.models import vg_mc_price_device
     dev = vg_mc_price_device(S, K, SIGMA, THETA, KAPPA, R, T,
                              samples=200000, seed=1)
     host = vg_mc_price(S, K, SIGMA, THETA, KAPPA, R, T, samples=200000,
@@ -206,7 +206,7 @@ def test_chfun_sanity():
 def test_heston_pricer_reduces_to_bs_at_zero_volvol():
     """With vanishing vol-of-vol and v0 == theta == sigma_bs^2, Heston
     degenerates to Black-Scholes — the conv pricer must agree."""
-    from cfftpack_tpu.models import heston_cf
+    from cfftpack_jax.models import heston_cf
     sig, t, r = 0.2, 0.5, 0.02
     phi = lambda u: heston_cf(u, t, v0=sig ** 2, kappa=5.0,     # noqa: E731
                               theta=sig ** 2, sigma=1e-4, rho=0.0, r=r)
@@ -219,7 +219,7 @@ def test_heston_pricer_reduces_to_bs_at_zero_volvol():
 
 def test_heston_pricer_smile():
     """Nonzero correlation produces a monotone skewed call ladder."""
-    from cfftpack_tpu.models import heston_cf
+    from cfftpack_jax.models import heston_cf
     t, r = 0.5, 0.02
     phi = lambda u: heston_cf(u, t, v0=0.04, kappa=2.0,         # noqa: E731
                               theta=0.04, sigma=0.6, rho=-0.7, r=r)
@@ -261,7 +261,7 @@ def test_vg_distribution_matches_reference_binary():
     """The deterministic FFT part of vg_mc.cpp (delta -> fft ->
     conj(phi) -> ifft -> CDF) vs the compiled reference binary at
     N=2048: CDF agrees to ~1e-14 at spot-checked quantiles."""
-    from cfftpack_tpu.models.montecarlo import vg_distribution_grid
+    from cfftpack_jax.models.montecarlo import vg_distribution_grid
     _, pdf = vg_distribution_grid(SIGMA, THETA, KAPPA, R, T, 2048)
     cum = np.cumsum(pdf)
     want = {512: 0.000098313654346, 1024: 0.344910732462461,
@@ -273,7 +273,7 @@ def test_vg_distribution_matches_reference_binary():
 def test_shortrate_alpha_stable_fit():
     """Model 5 (alpha-stable + shifted exponential): the mesh must still
     reprice the curve after calibration."""
-    from cfftpack_tpu.models.chfun import alpha_stable_cf
+    from cfftpack_jax.models.chfun import alpha_stable_cf
     times = np.linspace(0.0, 3.0, 25)
     mesh = ShortRateMesh(256, times, alpha_stable_cf(1.8, 0.0, 0.08),
                          mean_reversion=0.01, conv="shifted_exponential",
@@ -292,7 +292,7 @@ def test_shortrate_other_models_fit(model, conv, shift, guess):
     """Models 2/3/4 of shortrate.cpp:332-410: the calibration must
     reprice the curve (Pelsser needs the tuned root guess, as the
     reference notes)."""
-    from cfftpack_tpu.models.chfun import normal_cf, nig_cf
+    from cfftpack_jax.models.chfun import normal_cf, nig_cf
     times = np.linspace(0.0, 3.0, 25)
     if model == 2:
         phi = normal_cf(0.10)

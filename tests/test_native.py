@@ -3,8 +3,8 @@ Python planning layer (factor/fast sizes/twiddles/chirp)."""
 import numpy as np
 import pytest
 
-from cfftpack_tpu.native import build as native_build
-from cfftpack_tpu import plan
+from cfftpack_jax.native import build as native_build
+from cfftpack_jax import plan
 
 
 @pytest.fixture(scope="module")
@@ -14,7 +14,7 @@ def nat():
     except Exception as e:  # toolchain missing -> skip, fallbacks cover
         pytest.skip(f"native build unavailable: {e}")
     import importlib
-    from cfftpack_tpu.native import planner
+    from cfftpack_jax.native import planner
     importlib.reload(planner)  # re-probe the freshly built library
     if not planner.available():
         pytest.skip("libplancore.so did not load")

@@ -8,8 +8,9 @@ import numpy as np
 import pytest
 import jax
 
-import cfftpack_tpu as ct
-from cfftpack_tpu.parallel import (make_mesh, local_mesh, shard_batch,
+import cfftpack_jax as ct
+from cfftpack_jax.utils.debug import count_collectives
+from cfftpack_jax.parallel import (make_mesh, local_mesh, shard_batch,
                                    pfft, pifft, prfft, pirfft, pdct,
                                    fft_fourstep, ifft_fourstep,
                                    fft2_sharded, ifft2_sharded)
@@ -143,7 +144,7 @@ def test_fft2_sharded_uses_one_mesh_dim_of_2d_mesh():
 
 
 def test_dctn2_sharded_matches_dctn():
-    from cfftpack_tpu.parallel import dctn2_sharded, idctn2_sharded, \
+    from cfftpack_jax.parallel import dctn2_sharded, idctn2_sharded, \
         dstn2_sharded
     mesh = local_mesh()
     x = np.random.default_rng(31).standard_normal((32, 32))
@@ -156,14 +157,14 @@ def test_dctn2_sharded_matches_dctn():
     got_s = np.asarray(dstn2_sharded(jnp.asarray(x), mesh))
     np.testing.assert_allclose(got_s, np.asarray(ct.dstn(x, 3)),
                                atol=TOL * 8)
-    from cfftpack_tpu.parallel import idstn2_sharded
+    from cfftpack_jax.parallel import idstn2_sharded
     back_s = np.asarray(idstn2_sharded(dstn2_sharded(jnp.asarray(x), mesh),
                                        mesh))
     np.testing.assert_allclose(back_s, x, atol=TOL * 32)
 
 
 def test_rowcol2d_sharded_batched_with_2d_mesh():
-    from cfftpack_tpu.parallel import dctn2_sharded
+    from cfftpack_jax.parallel import dctn2_sharded
     m2 = make_mesh((2, 2), ("data", "model"))
     x = np.random.default_rng(33).standard_normal((4, 16, 16))
     import jax.numpy as jnp
@@ -177,7 +178,7 @@ def test_rowcol2d_sharded_batched_with_2d_mesh():
 
 
 def test_fourstep_split_matches_complex_path():
-    from cfftpack_tpu.parallel import fft_fourstep_split, ifft_fourstep_split
+    from cfftpack_jax.parallel import fft_fourstep_split, ifft_fourstep_split
     import jax.numpy as jnp
     mesh = local_mesh()
     x = rng_complex((960,), seed=41)
@@ -198,7 +199,7 @@ def test_fourstep_split_matches_complex_path():
 
 
 def test_fft2_sharded_split_matches_complex_path():
-    from cfftpack_tpu.parallel import fft2_sharded_split, ifft2_sharded_split
+    from cfftpack_jax.parallel import fft2_sharded_split, ifft2_sharded_split
     import jax.numpy as jnp
     mesh = local_mesh()
     x = rng_complex((32, 32), seed=43)
@@ -214,8 +215,8 @@ def test_fft2_sharded_split_matches_complex_path():
 
 def test_sharded_strike_ladder_pricer():
     """configs[4]: the conv pricer end-to-end over a device mesh."""
-    from cfftpack_tpu.models import conv_option_price, bs_cf
-    from cfftpack_tpu.utils import black_scholes_option
+    from cfftpack_jax.models import conv_option_price, bs_cf
+    from cfftpack_jax.utils import black_scholes_option
     mesh = local_mesh()
     strikes = np.arange(85.0, 115.0, 1.0)   # 30 strikes (pads to 32)
     got = conv_option_price(100.0, strikes, 1 / 12, 0.03,
@@ -235,10 +236,11 @@ def test_fourstep_compiles_to_single_all_to_all():
     x = jnp.zeros(512, jnp.complex64)
     f = jax.jit(lambda a: fft_fourstep(a, mesh, reorder=False))
     txt = f.lower(x).compile().as_text()
-    n_a2a = sum(1 for line in txt.splitlines() if "all-to-all(" in line)
+    n_a2a = count_collectives(txt)["all-to-all"]
     assert n_a2a == 1, f"expected exactly 1 all-to-all, got {n_a2a}"
-    for coll in ("all-reduce(", "all-gather(", "reduce-scatter("):
-        assert coll not in txt, f"unexpected {coll} in four-step HLO"
+    for coll in ("all-reduce", "all-gather", "reduce-scatter"):
+        assert not count_collectives(txt)[coll], \
+            f"unexpected {coll} in four-step HLO"
 
 
 def test_fft2_sharded_collective_budget():
@@ -249,10 +251,11 @@ def test_fft2_sharded_collective_budget():
     x = jnp.zeros((64, 64), jnp.complex64)
     f = jax.jit(lambda a: fft2_sharded(a, mesh))
     txt = f.lower(x).compile().as_text()
-    n_a2a = sum(1 for line in txt.splitlines() if "all-to-all(" in line)
+    n_a2a = count_collectives(txt)["all-to-all"]
     assert n_a2a == 2, f"expected exactly 2 all-to-alls, got {n_a2a}"
-    for coll in ("all-reduce(", "all-gather(", "reduce-scatter("):
-        assert coll not in txt, f"unexpected {coll} in 2-D FFT HLO"
+    for coll in ("all-reduce", "all-gather", "reduce-scatter"):
+        assert not count_collectives(txt)[coll], \
+            f"unexpected {coll} in 2-D FFT HLO"
 
 
 def test_fourstep_overlap_parity():
@@ -283,10 +286,11 @@ def test_fourstep_overlap_collective_schedule():
     f = jax.jit(lambda a: fft_fourstep(a, mesh, reorder=False,
                                        overlap_chunks=4))
     txt = f.lower(x).compile().as_text()
-    n_a2a = sum(1 for line in txt.splitlines() if "all-to-all(" in line)
+    n_a2a = count_collectives(txt)["all-to-all"]
     assert n_a2a == 4, f"expected 4 chunked all-to-alls, got {n_a2a}"
-    for coll in ("all-reduce(", "all-gather(", "reduce-scatter("):
-        assert coll not in txt, f"unexpected {coll} in overlap HLO"
+    for coll in ("all-reduce", "all-gather", "reduce-scatter"):
+        assert not count_collectives(txt)[coll], \
+            f"unexpected {coll} in overlap HLO"
 
 
 def test_fourstep_overlap_bad_chunks():
@@ -304,7 +308,7 @@ def test_sharded_mc_models_match_single_device():
     the single-chip call, so the sharded price must match to summation
     order; the VG MC shards use disjoint PRNG sub-streams, so
     agreement is at MC error."""
-    from cfftpack_tpu.models import (asian_option_qmc_device,
+    from cfftpack_jax.models import (asian_option_qmc_device,
                                      vg_mc_price_device)
     a1 = asian_option_qmc_device(samples=4096)
     v1 = vg_mc_price_device(samples=200000, seed=2)
@@ -326,7 +330,7 @@ def test_rfft2_sharded_matches_single_device():
     """Sharded 2-D real FFT (rows sharded; ragged n1//2+1 spectrum axis
     padded to tile the all-to-all): parity with ops.rfft2 incl. odd row
     length and ortho norm, plus the 2-all-to-all forward budget."""
-    from cfftpack_tpu.parallel import (rfft2_sharded, irfft2_sharded,
+    from cfftpack_jax.parallel import (rfft2_sharded, irfft2_sharded,
                                        rfft2_sharded_split,
                                        irfft2_sharded_split)
     import jax.numpy as jnp
@@ -346,12 +350,12 @@ def test_rfft2_sharded_matches_single_device():
     with pytest.raises(ValueError):
         rfft2_sharded(np.ones((NDEV * 2 + 1, 8)), local_mesh())
     # collective budget: one transpose there + one back per direction
-    from cfftpack_tpu.parallel.fft2d import _rfft2_sharded_jit
+    from cfftpack_jax.parallel.fft2d import _rfft2_sharded_jit
     import jax
     x = jnp.zeros((16, 24))
     txt = _rfft2_sharded_jit.lower(x, local_mesh(), "data", "fftpack",
                                    None).compile().as_text()
-    n_a2a = sum(1 for line in txt.splitlines() if "all-to-all(" in line)
+    n_a2a = count_collectives(txt)["all-to-all"]
     # one transpose there + one back, times two split (re, im) planes
     assert n_a2a == 4, f"expected 4 all-to-all in forward, got {n_a2a}"
 
@@ -362,8 +366,8 @@ def test_sharded_hp_matches_single_device():
     BIT-identical to the single-device hp engine (same programs, no
     collectives for per-row work) at f64-class accuracy vs numpy."""
     import numpy as np
-    from cfftpack_tpu.parallel import pfft_hp, pifft_hp, prfft_hp
-    import cfftpack_tpu as ct
+    from cfftpack_jax.parallel import pfft_hp, pifft_hp, prfft_hp
+    import cfftpack_jax as ct
     mesh = local_mesh()
     nd = mesh.shape["data"] if "data" in mesh.shape else None
     r = np.random.default_rng(4)

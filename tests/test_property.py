@@ -3,7 +3,7 @@ bitwise determinism (BASELINE 'round-trip bit-stable')."""
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 
 AWKWARD = [97, 121, 127, 128, 169, 210, 255, 256, 343, 510, 512, 625,
            675, 899, 961]
@@ -119,48 +119,22 @@ def test_huge_prime_bluestein():
 
 
 def test_dispatch_gate_boundaries():
-    """Pure-shape unit checks of every round-5 dispatch gate (no
-    compiles): band edges must sit exactly where the A/B artifacts put
-    them (docs/DISPATCH.md)."""
+    """Pure-shape unit checks of the dispatch gates (no compiles): band
+    edges sit where docs/DISPATCH.md puts them."""
     import numpy as np
-    import jax
-    from cfftpack_tpu.ops import core
-    from cfftpack_tpu.ops.pallas_stream import (_filter_split_factor,
-                                                _tile_batch,
-                                                stream_pallas_eligible)
-    from cfftpack_tpu.ops.pallas_colfft import colfft_eligible
+    from cfftpack_jax.ops import core
 
-    on_tpu = jax.default_backend() == "tpu"
     # body chunk: 2^24 elems, 128-divisible batch, >= 2048 rows
     assert core._use_bodychunk(1024, 65536)
     assert not core._use_bodychunk(1024, 65536 - 64)     # % 128
     assert not core._use_bodychunk(65536, 256)           # < 2048 rows
     assert not core._use_bodychunk(1024, 8192)           # < 2^24 elems
-    # pair band: even n needs n >= 65536 and 2^24 elems (TPU only)
-    assert core._use_pair(65537, 4, np.float32)          # odd n anywhere
-    assert core._use_pair(65536, 256, np.float32) == on_tpu
-    assert not core._use_pair(65536, 32, np.float32)     # 2^21 elems
-    assert not core._use_pair(32768, 512, np.float32)    # n < 65536
-    # rstream band: [2^22, 2^24) at n >= 65536 (TPU only)
-    assert core._use_rstream(65536, 64, np.float32) == on_tpu
-    assert not core._use_rstream(65536, 256, np.float32)  # pair's band
-    assert not core._use_rstream(65536, 32, np.float32)   # < 2^22
-    assert not core._use_rstream(32768, 256, np.float32)  # n < 65536
-    # split-stream factors bracket the kernel's VMEM cap
-    assert _filter_split_factor(1 << 19) == 1
-    assert _filter_split_factor(1 << 20) == 2
-    assert _filter_split_factor(1 << 21) == 4
-    assert _filter_split_factor(1 << 22) is None
-    # tile floor: >= 16 grid steps at small batch; plain budget above
-    assert _tile_batch(512, 0, 64) == 4        # 16 steps, was bt8
-    assert _tile_batch(512, 0, 256) == 8       # 32 steps: untouched
-    assert _tile_batch(1024, 0, 64) == 2       # big-m budget
-    assert _tile_batch(512, 2048, 256) == 4    # explicit rows honored
-    # stream eligibility brackets
-    assert stream_pallas_eligible(2048, np.float32)
-    assert not stream_pallas_eligible(1024, np.float32)   # m = 8
-    assert not stream_pallas_eligible(1 << 20, np.float32)  # m > cap
-    # column kernel brackets
-    assert colfft_eligible(1024, 1024, np.float32)
-    assert not colfft_eligible(8192, 1024, np.float32)    # > _MAX_M
-    assert not colfft_eligible(1024, 192, np.float32)     # n1 % 128
+    # batch-pair real engine: odd n with an even batch, nothing else
+    assert core._use_pair(65537, 4)
+    assert not core._use_pair(65537, 3)                  # odd batch
+    assert not core._use_pair(65536, 256)                # even n
+    assert not core._use_pair(1, 4)
+    # four-step split: n1 closest to 64 in [8, 256] with n2 >= 128
+    assert core._fourstep_split_n(1 << 20) == (64, 1 << 14)
+    assert core._fourstep_split_n(8192) == (64, 128)
+    assert core._fourstep_split_n(4099) is None          # prime

@@ -6,7 +6,7 @@ from cfftpack.c:433-494).
 import numpy as np
 import pytest
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 from oracles import naive_rfft
 
 SIZES = [1, 2, 3, 4, 5, 6, 8, 15, 16, 25, 32, 49, 60, 101, 120, 243, 256,
@@ -144,11 +144,11 @@ def test_rfilter_split_axis_and_validation():
 @pytest.mark.parametrize("n", [9, 101, 625])
 def test_rfft_batchpair_engine(n):
     """Odd n with an even flat batch routes through the batch-pair
-    engine (core._srfft_batchpair: one half-batch full-length FFT,
-    measured 1.1-1.5x on v5e); parity vs the oracle, the packed
+    engine (core._srfft_batchpair: one half-batch full-length FFT);
+    parity vs the oracle, the packed
     exact-zero contract, and the round-trip must all hold, and the odd
     flat batch fallback must agree with the pair path."""
-    from cfftpack_tpu.ops import core
+    from cfftpack_jax.ops import core
     xe = rng_real((6, n), seed=n)       # even batch -> pair engine
     got = np.asarray(ct.rfft(xe))
     np.testing.assert_allclose(got, naive_rfft(xe), atol=F64_TOL * 8)
@@ -165,10 +165,9 @@ def test_rfft_batchpair_engine(n):
 
 @pytest.mark.parametrize("idiom", ["stack", "select"])
 def test_interleave_idioms_agree(idiom):
-    """Both riffle idioms behind core._interleave (BASELINE.md "riffle
-    idiom A/B") must produce identical transforms — the select branch
-    is kept for v5p/v6 re-measurement and must not rot."""
-    from cfftpack_tpu.ops import core
+    """Both riffle idioms behind core._interleave must produce identical
+    transforms (dct4 uses the select idiom at large n)."""
+    from cfftpack_jax.ops import core
     x = rng_real((3, 64), seed=7)
     old = core._RIFFLE_IDIOM
     try:
@@ -210,7 +209,7 @@ def test_real_entry_points_reject_complex():
 
 
 def test_rfft2_split_matches_rfft2():
-    """rfft2_split/irfft2_split (the 2-D real TPU path) agree with
+    """rfft2_split/irfft2_split agree with
     rfft2 bin-for-bin, incl. odd n1 and both norms."""
     F32_TOL = 2e-4
     for shape in ((6, 8), (5, 9)):
@@ -225,12 +224,11 @@ def test_rfft2_split_matches_rfft2():
 
 
 def test_rfft2_split_padded_middle():
-    """The TPU ragged-axis pad (ops/rfft._ragged_pad: lane-tile pad
-    around the axis-0 complex passes, 1.48-2.11x on-chip) must be
-    bit-equivalent to the unpadded path; forced on here (it is
-    backend-gated off on CPU)."""
+    """The ragged-axis pad (ops/rfft._ragged_pad: pad to a multiple of
+    128 around the axis-0 complex passes) must be equivalent to the
+    unpadded path; forced on here (it is backend-gated off on CPU)."""
     import sys
-    R = sys.modules["cfftpack_tpu.ops.rfft"]   # attr `rfft` on the
+    R = sys.modules["cfftpack_jax.ops.rfft"]   # attr `rfft` on the
     # package is the FUNCTION re-export; get the real module
     x = rng_real((2, 8, 10), seed=9).astype(np.float32)
     want_r, want_i = ct.rfft2_split(x)
@@ -241,8 +239,8 @@ def test_rfft2_split_padded_middle():
                 == (len(shape) - 2, len(shape) - 1)) else 0)
     try:
         got_r, got_i = R._rfft2_split_core(x, (-2, -1), "fftpack")
-        # (bit-identical on TPU; XLA:CPU vectorizes the padded batch
-        # differently, so f32-tolerance here)
+        # (XLA:CPU vectorizes the padded batch differently, so
+        # f32-tolerance here)
         np.testing.assert_allclose(np.asarray(got_r),
                                    np.asarray(want_r), atol=1e-5)
         np.testing.assert_allclose(np.asarray(got_i),
@@ -265,12 +263,12 @@ def test_bodychunk_dispatch_parity(monkeypatch):
     """Whole-body chunking (core._use_bodychunk, round 5): srfft/sirfft
     and the DCT cores must be bit-close to the unchunked path.  The
     2^24-element threshold is patched down so the gate fires at test
-    sizes (on-chip 2.5-2.7x A/B: ROWBODY_CHUNK_r05)."""
+    sizes."""
     import importlib
     import numpy as np
     import jax.numpy as jnp
-    from cfftpack_tpu.ops import core
-    dctmod = importlib.import_module("cfftpack_tpu.ops.dct")
+    from cfftpack_jax.ops import core
+    dctmod = importlib.import_module("cfftpack_jax.ops.dct")
     r = np.random.default_rng(91)
     B, n = 2048, 64
     x = r.standard_normal((B, n)).astype(np.float32)
@@ -294,11 +292,11 @@ def test_bodychunk_dispatch_parity(monkeypatch):
 
 def test_rfilter_bodychunk_parity(monkeypatch):
     """rfilter_split's whole-body chunk branch must match the fused
-    body exactly (threshold patched down; ROWBODY_CHUNK_r05)."""
+    body exactly (threshold patched down)."""
     import numpy as np
     import jax.numpy as jnp
-    import cfftpack_tpu as ct
-    from cfftpack_tpu.ops import core
+    import cfftpack_jax as ct
+    from cfftpack_jax.ops import core
     r = np.random.default_rng(95)
     B, n = 2048, 64
     x = r.standard_normal((B, n)).astype(np.float32)

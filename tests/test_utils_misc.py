@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import cfftpack_tpu as ct
+import cfftpack_jax as ct
 
 
 def rng_complex(shape, seed=0):
@@ -61,18 +61,24 @@ def test_gdft_split_matches_complex():
                                    atol=1e-12)
 
 
-def test_compilation_cache_helper(tmp_path):
-    from cfftpack_tpu.utils.cache import enable_compilation_cache, warm_plans
-    p = enable_compilation_cache(str(tmp_path / "xlacache"))
-    assert os.path.isdir(p)
+def test_compilation_cache_helper(tmp_path, monkeypatch):
+    from cfftpack_jax.utils.cache import enable_compilation_cache, warm_plans
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        p = enable_compilation_cache()
+        assert p == str(tmp_path / "xla") and os.path.isdir(p)
+        assert jax.config.jax_compilation_cache_dir == p
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
     warm_plans([60, 101, 1024])
-    from cfftpack_tpu import plan
+    from cfftpack_jax import plan
     assert plan.factor(60) == (4, 3, 5)
     assert plan.needs_bluestein(101)
 
 
 def test_profiling_timer():
-    from cfftpack_tpu.utils.profiling import Timer
+    from cfftpack_jax.utils.profiling import Timer
     x = jnp.ones((8, 8))
     y = ct.fft(x)
     with Timer(sync=y) as t:
@@ -81,7 +87,7 @@ def test_profiling_timer():
 
 
 def test_apps_alias_surface():
-    import cfftpack_tpu.apps as apps
+    import cfftpack_jax.apps as apps
     for name in ("conv_bsvg_option", "vg_mc_price", "asian_option_qmc",
                  "ShortRateMesh", "black_scholes_option", "halton"):
         assert hasattr(apps, name), name
@@ -99,8 +105,8 @@ def test_examples_importable_and_strikes_run():
     mod.demo_vgmc.__wrapped__ if hasattr(mod.demo_vgmc, "__wrapped__") \
         else None
     # smoke: strikes demo math (small n to stay fast)
-    from cfftpack_tpu.models import conv_option_price, bs_cf
-    from cfftpack_tpu.utils import black_scholes_option
+    from cfftpack_jax.models import conv_option_price, bs_cf
+    from cfftpack_jax.utils import black_scholes_option
     got = conv_option_price(100.0, np.array([95.0, 105.0]), 0.1, 0.02,
                             lambda u: bs_cf(u, 0.1, 0.2, 0.02),
                             n=2048, grid_sigma=0.2)
@@ -162,7 +168,7 @@ def test_edge_probes():
 
 
 def test_aot_precompile():
-    from cfftpack_tpu.utils.aot import precompile
+    from cfftpack_jax.utils.aot import precompile
     step = precompile(lambda v: ct.dct(v, 2, norm="ortho"),
                       jnp.zeros((4, 32), jnp.float32))
     x = np.random.default_rng(3).standard_normal((4, 32)).astype(np.float32)
@@ -182,7 +188,7 @@ def test_split_api_integer_input_coerced():
 
 
 def test_compat_batched_arrays():
-    import cfftpack_tpu.compat as cc
+    import cfftpack_jax.compat as cc
     f = cc.dct_create(16)
     x = np.random.default_rng(0).standard_normal((3, 16))
     got = np.asarray(f.forward(x))
@@ -196,7 +202,7 @@ def test_compat_batched_arrays():
 
 
 def test_profiler_trace_smoke(tmp_path):
-    from cfftpack_tpu.utils.profiling import trace
+    from cfftpack_jax.utils.profiling import trace
     with trace(str(tmp_path / "tr")) as logdir:
         jax.block_until_ready(ct.fft(jnp.ones(64, jnp.complex128)))
     assert os.path.isdir(logdir)
@@ -216,7 +222,7 @@ def test_debug_hooks():
     jax_debug_nans/infs configs that make jitted code raise at the
     offending op."""
     import pytest
-    from cfftpack_tpu.utils import check_finite, enable_nan_checks
+    from cfftpack_jax.utils import check_finite, enable_nan_checks
 
     check_finite(np.ones(4), jnp.zeros((2, 2)), name="ok")
     with pytest.raises(FloatingPointError, match=r"bad\[1\]: 2 non-finite"):
@@ -235,9 +241,9 @@ def test_debug_hooks():
 def test_halton_batch_int32_overflow_guard():
     """Advisor round-2: indices past 2**31 wrapped silently in int32."""
     import pytest
-    from cfftpack_tpu.utils.qmc import halton_batch
+    from cfftpack_jax.utils.qmc import halton_batch
     with pytest.raises(ValueError, match="2\\*\\*31"):
         halton_batch(2**31 - 4, 8, 4)
-    from cfftpack_tpu.models.montecarlo import asian_option_qmc_device
+    from cfftpack_jax.models.montecarlo import asian_option_qmc_device
     with pytest.raises(ValueError, match="2\\*\\*31"):
         asian_option_qmc_device(samples=2048, run_index=2**31 // 2048)

@@ -14,7 +14,7 @@ reference (fft, fft2, rfft, dct, dct1, dct4, dst, dst1, dst4, dct5-8,
 dst5-8, gdft, dct_2d, fftshift/ifftshift), deterministic inputs and the
 reference outputs in default and (where supported) orthonormal scaling.
 These are DATA produced by running the reference, used as the parity
-oracle demanded by BASELINE.md ("forward outputs <=1e-12 f64 vs
+oracle demanded by the north star ("forward outputs <=1e-12 f64 vs
 reference C"); no reference code is copied.
 """
 from __future__ import annotations

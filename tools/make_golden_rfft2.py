@@ -4,7 +4,7 @@ The reference's L2 wrapper never exposes rfft2, but the core routines
 ``rfft2i_``/``rfft2f_``/``rfft2b_`` are exported from fftpack.c
 (/root/reference/cfftpack/fftpack.c:13113-13516).  This tool calls them
 directly via ctypes and commits their raw packed in-place outputs, so
-cfftpack_tpu.rfft2/irfft2 can be pinned against the running C core —
+cfftpack_jax.rfft2/irfft2 can be pinned against the running C core —
 including the Nyquist-row and sign fixups (fftpack.c:13357-13371,
 13388-13396, 13419-13431) that a numpy-style oracle cannot witness.
 
